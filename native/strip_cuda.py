@@ -4,7 +4,7 @@
 Used to compile the *reference's own CPU code paths* (read in place from
 /root/reference — never copied into the repo) into `libref_oracle.so`, so the
 reference implementation itself can be executed as a bit-exactness oracle
-against the TPU pipeline (the non-FFT chain: tfhe_bootstrap at
+against the JAX pipeline (the non-FFT chain: tfhe_bootstrap at
 lwe-bootstrapping-functions.cu:159-182 over exact-integer polynomial
 multiplication, multiplication.cu:53-143).
 

@@ -1,17 +1,17 @@
 // Native exact TFHE engine (C++17 + OpenMP).
 //
-// The TPU framework's host-side twin of the reference's CPU path
+// The JAX framework's host-side twin of the reference's CPU path
 // (cpuParallel/ + the CPU originals inside gpuParallel/*.cu): an exact
 // integer implementation of the full gate-bootstrapping pipeline used as
-//   (a) a fast differential oracle for the JAX/Pallas pipeline (bit-exact:
+//   (a) a fast differential oracle for the JAX pipeline (bit-exact:
 //       both sides are exact integer arithmetic),
 //   (b) the "CPU framework" capability of the reference (OpenMP-batched
 //       gates, cpuParallel/Cipher.cpp:88-121), and
-//   (c) the host fallback evaluator when no TPU is attached.
+//   (c) a host evaluator that needs no accelerator.
 //
 // Written from scratch against the documented semantics (SURVEY.md sections
 // 0-3); polynomial products are O(N^2) int64 negacyclic convolutions (exact),
-// not FFTs, so results match the TPU NTT pipeline bit-for-bit.
+// not FFTs, so results match the JAX NTT pipeline bit-for-bit.
 //
 // C ABI only; bound from Python via ctypes (tfhe_tpu/native_ref.py).
 

@@ -248,9 +248,9 @@ def test_septet_mul_under_real_noise():
 
 
 def test_whole_circuit_jit_matches_eager(toy_keys):
-    """The whole-circuit jit path (arith.circuit, TPU default) must compute
-    exactly what the eager dispatch computes. CPU-compile cost bounds this to
-    ONE small circuit; the TPU bench queue exercises the full surface."""
+    """The whole-circuit jit path (arith.circuit, the accelerator default)
+    must compute exactly what the eager dispatch computes. CPU-compile cost
+    bounds this to ONE small circuit; chip_smoke.py runs it at full size."""
     import jax
     from tfhe_tpu import config
     sk = toy_keys

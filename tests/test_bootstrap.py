@@ -1,4 +1,4 @@
-"""Differential tests: every stage of the batched TPU pipeline must be
+"""Differential tests: every stage of the batched JAX pipeline must be
 BIT-IDENTICAL to the numpy oracle (both use exact integer arithmetic).
 
 This is a stronger check than the reference ever had: its GPU/CPU paths only

@@ -77,3 +77,21 @@ def test_native_ripple_add(toy_keys):
     got = arith.decrypt_int(sk, out)
     want = np.array([5, -8, -5])  # mod-16 two's complement of a+b
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 3, 65, 300])
+def test_bootstrap_matches_native_batch_sizes(toy_keys, B):
+    """bootstrap() is bit-identical to the native engine at every batch
+    size, including one above the chunk size (bootstrap.LANE_MAX_BATCH)."""
+    from tfhe_tpu.core import bootstrap as bs
+    from tfhe_tpu.core.lwe import LweCiphertext
+    sk = toy_keys
+    rng = np.random.RandomState(100 + B)
+    a = rng.randint(-(2 ** 31), 2 ** 31, size=(B, sk.params.n)).astype(np.int32)
+    b = rng.randint(-(2 ** 31), 2 ** 31, size=(B,)).astype(np.int32)
+    mu = 1 << 29
+    na, nb = native_ref.bootstrap_batch(sk, a, b, mu)
+    ct = LweCiphertext(jnp.asarray(a), jnp.asarray(b), jnp.zeros(B, jnp.float32))
+    out = bs.bootstrap(ct, jnp.int32(mu), sk.cloud)
+    np.testing.assert_array_equal(np.asarray(out.a), na)
+    np.testing.assert_array_equal(np.asarray(out.b), nb)

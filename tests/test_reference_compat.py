@@ -141,10 +141,10 @@ def test_encrypt_stream_continuation(ref_ct):
 
 
 def test_gates_on_reference_ciphertexts(ref_sk, ref_ct):
-    """North star: the TPU pipeline under reference keys is ciphertext-exact
+    """North star: the JAX pipeline under reference keys is ciphertext-exact
     vs the independent native CPU engine, and decrypts to the truth table.
 
-    AND / XOR over the low bit-pairs of (2017, 42): the TPU gate output and
+    AND / XOR over the low bit-pairs of (2017, 42): the JAX gate output and
     the native C++ engine output must agree bit for bit (both exact integer
     pipelines under identical keys — the differential mechanism the reference
     used for its own GPU port, SURVEY.md section 4.3)."""

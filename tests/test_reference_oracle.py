@@ -6,8 +6,8 @@ units in place from /root/reference/gpuParallel — keygen
 (bootsSymEncrypt), the non-FFT bootstrap chain (tfhe_bootstrap,
 lwe-bootstrapping-functions.cu:159-182, over exact-integer Karatsuba,
 multiplication.cu:126-176) and the tfhe_io serializer. These tests require
-the TPU pipeline to be BYTE-IDENTICAL to that code's output, closing round-2
-VERDICT item 1: every oracle is no longer builder-authored — the reference
+the JAX pipeline to be BYTE-IDENTICAL to that code's output, so no
+oracle is authored by this repository alone — the reference
 implementation itself now attests keys, ciphertexts, every pipeline stage
 (blind-rotate+extract, key switch), whole gates, MUX, and the wire format.
 """

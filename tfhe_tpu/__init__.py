@@ -1,13 +1,13 @@
-"""tfhe_tpu — a TPU-native Torus Fully Homomorphic Encryption framework.
+"""tfhe_tpu — a batched Torus Fully Homomorphic Encryption framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the reference
+A from-scratch JAX/XLA re-design with the capabilities of the reference
 CPU/GPU TFHE library (toufique-morshed/CPU-GPU-TFHE): gate bootstrapping,
 boolean gate API, integer arithmetic circuits, vector/matrix ops, and
-multi-chip scaling over TPU meshes.
+multi-device scaling over device meshes.
 
 Layer map (SURVEY.md section 1 -> this package):
   L0 numerics        -> tfhe_tpu.numeric
-  L1/L2 poly + FFT   -> tfhe_tpu.ntt (exact CRT NTT) + tfhe_tpu.ops (Pallas)
+  L1/L2 poly + FFT   -> tfhe_tpu.ntt (exact CRT NTT) + tfhe_tpu.ops (CUDA kernel)
   L3/L4/L5 core      -> tfhe_tpu.core (lwe, keys, bootstrap, crypt)
   L6 gates           -> tfhe_tpu.gates
   L7 arithmetic      -> tfhe_tpu.arith, tfhe_tpu.linalg, tfhe_tpu.cipher

@@ -12,6 +12,7 @@ import argparse
 import os
 
 import tfhe_tpu as tt
+from tfhe_tpu.config import enable_compile_cache
 from tfhe_tpu import arith, io as tio
 
 
@@ -23,6 +24,7 @@ def main(argv=None):
     ap.add_argument("--dir", default=".")
     ap.add_argument("--params", choices=["110", "toy"], default="110")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     if args.params == "toy":
         from tfhe_tpu.apps import force_cpu_backend

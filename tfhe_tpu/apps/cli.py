@@ -16,6 +16,7 @@ import numpy as np
 import jax
 
 import tfhe_tpu as tt
+from tfhe_tpu.config import enable_compile_cache
 from tfhe_tpu import arith, gates, linalg
 
 
@@ -35,6 +36,7 @@ def main(argv=None):
     ap.add_argument("--experiments", nargs="*",
                     default=["gates", "add", "mul", "vector", "matrix"])
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     if args.params != "110":
         from tfhe_tpu.apps import force_cpu_backend

@@ -14,6 +14,7 @@ import time
 import jax
 
 import tfhe_tpu as tt
+from tfhe_tpu.config import enable_compile_cache
 from tfhe_tpu import arith, io as tio
 
 
@@ -25,15 +26,14 @@ def main(argv=None):
     ap.add_argument("--bits", type=int, default=16)
     ap.add_argument("--dir", default=".")
     ap.add_argument("--platform", choices=["auto", "cpu"], default="auto",
-                    help="auto = CPU for toy-ring keys (N<1024), device otherwise")
+                    help="auto = JAX's default backend; cpu for toy params")
     args = ap.parse_args(argv)
-
-    key_path = os.path.join(args.dir, "cloud.key")
-    with open(key_path, "rb") as f:
-        peek = tio.read_gate_bootstrapping_params(f)
-    if args.platform == "cpu" or peek.N < 1024:
+    enable_compile_cache()
+    if args.platform == "cpu":
         from tfhe_tpu.apps import force_cpu_backend
         force_cpu_backend()
+
+    key_path = os.path.join(args.dir, "cloud.key")
     with open(key_path, "rb") as f:
         params, cloud = tio.import_cloud_keyset(f)
     with open(os.path.join(args.dir, "cloud.data"), "rb") as f:

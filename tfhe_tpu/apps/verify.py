@@ -12,6 +12,7 @@ import os
 import numpy as np
 
 import tfhe_tpu as tt
+from tfhe_tpu.config import enable_compile_cache
 from tfhe_tpu import io as tio
 
 
@@ -21,15 +22,14 @@ def main(argv=None):
     ap.add_argument("--dir", default=".")
     ap.add_argument("--unsigned", action="store_true")
     ap.add_argument("--platform", choices=["auto", "cpu"], default="auto",
-                    help="auto = CPU for toy-ring keys (N<1024), device otherwise")
+                    help="auto = JAX's default backend; cpu for toy params")
     args = ap.parse_args(argv)
-
-    key_path = os.path.join(args.dir, "secret.key")
-    with open(key_path, "rb") as f:
-        peek = tio.read_gate_bootstrapping_params(f)
-    if args.platform == "cpu" or peek.N < 1024:
+    enable_compile_cache()
+    if args.platform == "cpu":
         from tfhe_tpu.apps import force_cpu_backend
         force_cpu_backend()
+
+    key_path = os.path.join(args.dir, "secret.key")
     with open(key_path, "rb") as f:
         sk = tio.import_secret_keyset(f)
     with open(os.path.join(args.dir, "answer.data"), "rb") as f:

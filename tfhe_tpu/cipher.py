@@ -1,6 +1,6 @@
 """High-level encrypted-integer API with operator overloads.
 
-The TPU-native equivalent of the reference CPU framework's `Cipher` class
+The batched equivalent of the reference CPU framework's `Cipher` class
 (`cpuParallel/Cipher.h:29-69`): an n-bit two's-complement integer (or a batch
 of them) with +, -, *, /, comparisons, absolute, minimum, shifts. Every
 operation is a batched circuit from tfhe_tpu.arith, so a CipherInt holding a

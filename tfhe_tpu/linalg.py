@@ -66,7 +66,7 @@ def cannon_matmul(a: LweCiphertext, b: LweCiphertext, cloud) -> LweCiphertext:
     main.cu:2590-2644 with leftRotate/upRotate :2531-2557): pre-skew, then D
     rounds of elementwise multiply + accumulate + neighbor rotations.
 
-    Single-chip version (rotations are array rolls); the mesh version with ICI
+    Single-chip version (rotations are array rolls); the mesh version with
     ppermute lives in tfhe_tpu.parallel.cannon. a, b: [D, D, nbits].
 
     The per-round multiply+accumulate is kept in CARRY-SAVE form: each round

@@ -3,7 +3,7 @@
 Builds the shared library on first use (g++ -O3 -fopenmp) and exposes
 bootstrap/gate evaluation over numpy arrays. This is the host-side twin of the
 reference's CPU framework (cpuParallel/) and the fast differential oracle for
-the TPU pipeline.
+the JAX pipeline.
 """
 from __future__ import annotations
 

@@ -1,1 +1,1 @@
-from . import cmux_pallas
+"""Hand-written device kernels (see blind_rotate_cuda)."""

@@ -2,8 +2,8 @@
 
 This module mirrors, operation by operation, the reference CPU implementation
 (`gpuParallel/*.cu` original CPU paths and `cpuParallel/`), using exact int64
-integer arithmetic instead of FFTs. It exists so every stage of the TPU pipeline
-can be checked bit-exactly (the TPU pipeline's NTT is exact, so outputs must be
+integer arithmetic instead of FFTs. It exists so every stage of the JAX pipeline
+can be checked bit-exactly (the JAX pipeline's NTT is exact, so outputs must be
 IDENTICAL, a stronger guarantee than the reference's own FFT-vs-CPU validation,
 SURVEY.md section 4.3).
 

@@ -1,11 +1,11 @@
-"""Cannon's algorithm over a 2-D TPU mesh with ICI neighbor permutes.
+"""Cannon's algorithm over a 2-D device mesh with neighbor permutes.
 
 The reference implements Cannon's algorithm on a single GPU, simulating the
 block grid with leftRotate/upRotate kernels (`gpuParallel/main.cu:2590-2644,
-2531-2557`; paper section V-B3) to fit the fixed memory. On TPU the algorithm
-is finally in its natural habitat: one matrix block per chip, with the
-shift-multiply-accumulate rotations as `jax.lax.ppermute` collectives over the
-mesh's ICI links — zero host involvement.
+2531-2557`; paper section V-B3) to fit the fixed memory. On a mesh the
+algorithm is in its natural habitat: one matrix block per device, with the
+shift-multiply-accumulate rotations as `jax.lax.ppermute` collectives between
+devices — zero host involvement.
 """
 from __future__ import annotations
 

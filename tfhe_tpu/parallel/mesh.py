@@ -1,11 +1,11 @@
-"""Multi-chip scaling over a TPU mesh.
+"""Multi-device scaling over a device mesh.
 
 The reference is single-process single-GPU (SURVEY.md section 2: no comm
 library at all); its scaling axis is "bit coalescing" into one device's batch.
-The TPU-native generalization is *bit coalescing across chips*: independent
+The generalization is *bit coalescing across devices*: independent
 ciphertext bits/gates are data-parallel, so we shard the gate batch over a
-`jax.sharding.Mesh` with `shard_map` (keys replicated; ICI never sees a
-ciphertext unless a collective op like Cannon's matmul needs it).
+`jax.sharding.Mesh` with `shard_map` (keys replicated; no ciphertext crosses
+a device link unless a collective op like Cannon's matmul needs it).
 
 Axes:
   dp  - gate/ciphertext batch (the bit-coalescing axis)
@@ -47,7 +47,7 @@ def sharded_gate2(name: str, x: LweCiphertext, y: LweCiphertext, cloud,
     """A 2-input bootstrapped gate with the batch sharded across the mesh.
 
     Requires batch size divisible by mesh size. Keys are replicated; each chip
-    bootstraps its local shard (zero ICI traffic - the DP analog of bit
+    bootstraps its local shard (zero cross-device traffic - the DP analog of bit
     coalescing, SURVEY.md section 2 item 3).
     """
     const, ca, cb = gates.GATE_TABLE[name]
@@ -90,8 +90,8 @@ def sharded_circuit(circuit, cts, cloud, mesh: Mesh, axis: str = "dp"):
     reference's `_vector` variants are the same circuits on a bigger batch).
     cts: tuple of input ciphertexts, leading axis divisible by the mesh.
 
-    This is the multi-chip form the v5e-8 throughput projection assumes: DP
-    over the bit-coalescing axis with zero ICI traffic inside the circuit.
+    DP over the bit-coalescing axis with zero cross-device traffic inside
+    the circuit.
     """
     def spec(ct):
         nb = len(ct.batch_shape)
@@ -126,7 +126,7 @@ def sharded_gate2_tp_ks(name: str, x: LweCiphertext, y: LweCiphertext, cloud,
     `lwe-keyswitch-functions.cu`, here the int8 limb matmul operand) is too
     large to replicate at scale — so its ROWS are sharded over `ks` chips,
     each chip contracts its row block against its batch gathered over the
-    `ks` axis, and one `psum` over ICI reduces the partial key-switch sums.
+    `ks` axis, and one `psum` across devices reduces the partial key-switch sums.
 
     Requires batch % (dp*ks) == 0 and n_extract % ks == 0.
     """
@@ -148,7 +148,7 @@ def sharded_gate2_tp_ks(name: str, x: LweCiphertext, y: LweCiphertext, cloud,
     cloud_spec = jax.tree.map(lambda _: P(), cloud)
     cloud_spec = type(cloud_spec)(
         params=cloud_spec.params, bk_ntt=P(), bk_ntt_shoup=P(),
-        bk_rows=P(), bk_rows_shoup=P(), ks_table=P("ks", None))
+        ks_table=P("ks", None))
 
     def local(xs, ys, ck):
         t = gates._affine2(xs, ys, jnp.int32(const), jnp.int32(ca), jnp.int32(cb))

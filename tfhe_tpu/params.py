@@ -1,10 +1,10 @@
 """TFHE parameter sets.
 
-TPU-native re-design of the reference's parameter plumbing:
+Batched re-design of the reference's parameter plumbing:
 - reference hard-codes the 110-bit set in `gpuParallel/tfhe_gate_bootstrapping.cu:25-49`
   and replicates the constants as CUDA `__constant__`s (`gpuParallel/boot-gates.cu:2120-2124`).
 - here everything derives from one frozen, hashable dataclass so the whole pipeline
-  (including Pallas kernels and the test-size toy sets) is parameterized and jit-cacheable.
+  (including the CUDA kernel and the test-size toy sets) is parameterized and jit-cacheable.
 """
 from __future__ import annotations
 

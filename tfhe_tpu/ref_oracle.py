@@ -11,7 +11,7 @@ run the reference's non-FFT `tfhe_bootstrap`
 multiplication (multiplication.cu:126-176, the reference's own commented-in
 configuration, polynomials_arithmetic.h:108-111).
 
-Tests in tests/test_reference_oracle.py require the TPU pipeline's
+Tests in tests/test_reference_oracle.py require the JAX pipeline's
 ciphertexts to be byte-identical to this library's output — retiring the
 last correlated-misreading risk flagged by round-2's VERDICT ("the
 reference's own code has never been executed").

@@ -139,8 +139,8 @@ def max_live16(params: TfheParams, z_min: float = 5.0) -> int:
     return max(0, min(7, m))
 
 
-# Hardware-measured per-sample phase-error variance at PARAMS_110
-# (tools/noise_stats.py --septet, v5e round 3: the 7-way affine of
+# Measured per-sample phase-error variance at PARAMS_110
+# (tools/noise_stats.py --septet: the 7-way affine of
 # post-bootstrap ±1/16 samples measured sigma = 0.171 of the 1/16 margin
 # BEFORE the consuming bootstrap, i.e. no mod-switch term:
 # var = (0.171 / 16)^2 / 7). Pinned here so the calibrated budget is
@@ -169,8 +169,6 @@ class _FakeCloud:
         self.ks_table = None
         self.bk_ntt = None
         self.bk_ntt_shoup = None
-        self.bk_rows = None
-        self.bk_rows_shoup = None
 
 
 class PhaseSim:
@@ -240,12 +238,8 @@ class PhaseSim:
     # --- plumbing --------------------------------------------------------
 
     def __enter__(self):
-        from ..config import overrides
         self._stack = contextlib.ExitStack()
         self._stack.enter_context(jax.disable_jit())
-        # the in-kernel-KS route bypasses the patched bootstrap layer's
-        # key_switch split — force it off for the simulation
-        self._stack.enter_context(overrides(TFHE_TPU_FUSEKS="0"))
         for name, fake in (("bootstrap", self._fake_bootstrap),
                            ("bootstrap_woks", self._fake_bootstrap_woks),
                            ("key_switch", self._fake_key_switch)):

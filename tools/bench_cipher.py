@@ -2,25 +2,22 @@
 """Benchmark the full Cipher-API surface (ops the reference never published
 numbers for: comparisons, division, absolute value, minimum, two's complement
 — cpuParallel/Cipher.cpp). Decrypt-verifies every op; merges a `cipher_api`
-table into BENCH_TABLES.json.
+table into out/bench_tables.json (or the given path).
 """
 import json
 import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-
 import tfhe_tpu as tt
+from tfhe_tpu.config import enable_compile_cache
 from tfhe_tpu import arith
-from provenance import stamp as _stamp_section
 
 
 def timed(fn, *args, n=3):
@@ -35,7 +32,9 @@ def timed(fn, *args, n=3):
     return best, out
 
 
-def main(out_path="BENCH_TABLES.json"):
+def main(out_path=os.path.join(ROOT, "out", "bench_tables.json")):
+    enable_compile_cache()
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     nb = 16
     sk = tt.keygen(tt.PARAMS_110, seed=(314, 1592, 657))
     av, bv = 1234, 567
@@ -58,7 +57,6 @@ def main(out_path="BENCH_TABLES.json"):
             with open(out_path) as f:
                 report = json.load(f)
         report.setdefault("cipher_api_16bit", {}).update(rows)
-        _stamp_section(report, "cipher_api_16bit")
         with open(out_path, "w") as f:
             json.dump(report, f, indent=2)
 

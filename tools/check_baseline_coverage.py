@@ -1,19 +1,19 @@
 #!/usr/bin/env python
-"""Audit BENCH_TABLES.json coverage of every published reference GPU cell.
+"""Audit out/bench_tables.json coverage of every published reference GPU cell.
 
 One row per GPU-column cell of the paper's Tables IV-X / Fig. 5c (the
-inventory BASELINE.md mirrors), mapped to its BENCH_TABLES.json twin.
+inventory BASELINE.md mirrors), mapped to its twin in the bench_suite report.
 Prints covered / MISSING per cell and a summary; exits nonzero if anything
 is missing so the bench queue can gate on it.
 
-Usage: python tools/check_baseline_coverage.py [BENCH_TABLES.json]
+Usage: python tools/check_baseline_coverage.py [out/bench_tables.json]
 """
 import json
 import sys
 
 
 def cells():
-    """(label, path) — path is a list of keys into BENCH_TABLES.json."""
+    """(label, path) — path is a list of keys into the report."""
     out = []
     for b in (2, 4, 8, 16, 32):
         out.append((f"Table IV gate batch {b}-bit", ["gate_batch", str(b), "s"]))
@@ -42,7 +42,7 @@ def cells():
     return out
 
 
-def main(path="BENCH_TABLES.json"):
+def main(path="out/bench_tables.json"):
     with open(path) as f:
         tables = json.load(f)
     missing = 0
@@ -60,7 +60,7 @@ def main(path="BENCH_TABLES.json"):
         missing += not ok
         print(f"{'covered' if ok else 'MISSING'}  {label}")
     total = len(cells())
-    print(f"\n{total - missing}/{total} published GPU cells have a TPU twin"
+    print(f"\n{total - missing}/{total} published GPU cells have a measured twin"
           + (f" — {missing} missing" if missing else ""))
     return 1 if missing else 0
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Analytic noise-budget certificate for the worst circuit DAGs (VERDICT r3 #6).
+"""Analytic noise-budget certificate for the worst circuit DAGs.
 
 Replays the production circuits through the exact phase simulator
 (tfhe_tpu/utils/phasesim.py): every bootstrap-input image's worst-case margin
@@ -11,12 +11,12 @@ Three per-sample variance models (NOISE.md derives them):
              cv discipline): conservative by ~2.5x in variance.
   average  — average-case digit variance (rigorous for computationally
              uniform ciphertexts, concentration over ~2e6 digit terms).
-  measured — hardware-measured per-sample variance (round-3 v5e, pinned in
+  measured — per-sample variance measured from real ciphertexts (pinned in
              phasesim.SAMPLE_VAR_MEASURED_110).
 
 Also validates each circuit's exact DAG at PARAMS_110 (the simulated decrypt
 must equal the plaintext op), and counts bootstrap images per op — the
-circuit-size numbers RESULTS.md cites.
+circuit-size numbers NOISE.md cites.
 
 Usage: python tools/noise_budget.py [--quick] [--json OUT]
 """
@@ -36,6 +36,7 @@ jax.config.update("jax_platforms", "cpu")
 from tfhe_tpu.params import PARAMS_110
 from tfhe_tpu.utils import phasesim as ps
 from tfhe_tpu import arith, gates
+from tfhe_tpu.config import enable_compile_cache
 
 GATE_BUDGET = 2.0 ** -25   # classic per-gate failure discipline (paper SIII)
 
@@ -109,6 +110,7 @@ def mk_add(nbits):
 
 
 def main():
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
                     help="skip the 32-bit and K=16 DAGs")

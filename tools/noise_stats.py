@@ -12,21 +12,20 @@ Usage: python tools/noise_stats.py [total_gates] [batch]
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-
 import tfhe_tpu as tt
+from tfhe_tpu.config import enable_compile_cache
 from tfhe_tpu import gates
 from tfhe_tpu.core.crypt import decrypt_phase
 
 
 def main():
+    enable_compile_cache()
     total = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     batch = int(sys.argv[2]) if len(sys.argv) > 2 else 256
     params = tt.PARAMS_110
